@@ -1,6 +1,6 @@
-"""catears_tpu — a TPU-native speech-to-text inference framework.
+"""catears_tpu — a batched speech-to-text inference framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 ishine/CatEars (pocketkaldi): 16 kHz PCM -> log-mel fbank features ->
 nnet3-style feed-forward acoustic model -> frame-synchronous Viterbi beam
 search over an HCLG WFST, with optional on-the-fly big-LM (delta-LM)

@@ -6,7 +6,7 @@ is nnet log-softmax minus log-prior (pseudo log-likelihood, src/am.cc:108-112);
 streaming replicates the first frame x left_context at utterance start and
 the last frame x right_context at end-of-stream (src/am.cc:115-164).
 
-TPU-first: the whole utterance (or a chunk) is a single [T, 40] -> [T', P]
+The whole utterance (or a chunk) is a single [T, 40] -> [T', P]
 jit program; the streaming wrapper batches frames into fixed chunk_size
 programs so shapes stay static.
 """

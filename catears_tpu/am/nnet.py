@@ -6,9 +6,15 @@ row to rms 1), Softmax, LogSoftmax (rowwise), Splice (frame-context concat
 with edge clamping, src/nnet.cc:50-75), BatchNorm (precomputed scale/offset
 elementwise), Narrow (drop left/right context rows, src/nnet.cc:182-202).
 
-TPU-first: the whole stack is a pure function over a [T, D] (or [B, T, D])
-array; splice is a static gather; everything jits into one fused XLA program
+The whole stack is a pure function over a [T, D] (or [B, T, D]) array;
+splice is a static gather; everything jits into one fused XLA program
 instead of the reference's per-layer matrix ping-pong.
+
+Linears run at LINEAR_PRECISION = HIGHEST (true f32).  A GPU's default
+f32 matmul is TF32 (~10 mantissa bits), which moved the TDNN's
+log-likelihoods ~300x further from a float64 forward than HIGHEST did on
+the card (PERF.md findings); the AM is a small share of a decode, so
+full precision costs little end to end.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from catears_tpu.utils.errors import CorruptionError
 NnetDef = Tuple[Tuple[Any, ...], ...]
 # Per-layer parameter dicts (possibly empty), aligned with NnetDef.
 NnetParams = List[Dict[str, jnp.ndarray]]
+LINEAR_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def build_nnet(spec: NnetSpec) -> Tuple[NnetDef, NnetParams]:
@@ -95,7 +102,8 @@ def nnet_forward(nnet_def: NnetDef, params: NnetParams,
     for layer, p in zip(nnet_def, params):
         kind = layer[0]
         if kind == "linear":
-            x = jnp.dot(x, p["w"], preferred_element_type=jnp.float32) + p["b"]
+            x = jnp.dot(x, p["w"], precision=LINEAR_PRECISION,
+                        preferred_element_type=jnp.float32) + p["b"]
         elif kind == "relu":
             x = jnp.maximum(x, 0.0)
         elif kind == "normalize":

@@ -13,6 +13,7 @@ import sys
 
 from catears_tpu.io.wav import read_scp
 from catears_tpu.runtime.recognizer import Recognizer, decode_wav_file
+from catears_tpu.utils.device import enable_compile_cache
 from catears_tpu.utils.errors import CatEarsError
 
 
@@ -24,29 +25,10 @@ def print_usage() -> None:
     sys.exit(1)
 
 
-def _enable_compile_cache() -> None:
-    """Persist XLA compiles across CLI invocations.
-
-    The fused streaming program takes minutes to compile; without a disk
-    cache every CLI run pays it again.  CATEARS_CACHE_DIR overrides the
-    location; CATEARS_CACHE_DIR=0 disables.
-    """
-    import os
-
-    cache = os.environ.get("CATEARS_CACHE_DIR", "/tmp/catears_jax_cache")
-    if cache == "0":
-        return
-    try:
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # noqa: BLE001 - cache is best-effort
-        pass
-
-
 def main(argv=None) -> int:
-    _enable_compile_cache()
+    # The decode programs take tens of seconds to compile; the disk cache
+    # spares repeat CLI runs that cost.
+    enable_compile_cache()
     argv = list(argv) if argv is not None else sys.argv[1:]
     batch_size = 0
     for arg in list(argv):

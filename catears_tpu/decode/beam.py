@@ -1,6 +1,6 @@
 """Batched frame-synchronous Viterbi beam search on device.
 
-TPU-first redesign of the reference token-passing decoder (reference
+A dense redesign of the reference token-passing decoder (reference
 src/decoder.{h,cc}).  The pointer-chasing structures become dense arrays:
 
   token beam (hash table + pools)  -> K fixed slots (state, lm, cost, bp)
@@ -271,10 +271,9 @@ def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
     carrying extra [E] operands through every bitonic pass.
 
     Pruning is a SECOND stable sort by effective cost, not lax.top_k: on
-    TPU top_k(n -> K) at beam shapes measures ~5x the marginal cost of one
-    more multi-operand sort pass (scripts/selectprof.py).  Both break
+    the previous accelerator top_k was the slower of the two.  Both break
     cost ties by position in the dedup-sorted array, so results are
-    bit-identical.
+    bit-identical; ROADMAP S2 measures both on the GPU.
     """
     k = cfg.beam_size
     n = states.shape[0]
@@ -300,8 +299,7 @@ def _select_sorts(cfg: BeamConfig, states, lms, costs, payloads,
     # Prune sort carries ONLY (eff_cost, original index): every other field
     # — state, lm, payloads — is recovered by a single packed row gather of
     # the kept K slots, instead of riding every bitonic pass as an operand
-    # (sorts here are HBM-bandwidth-bound: each operand costs a full
-    # N x stages read+write).
+    # (each sort operand costs a full N x stages read+write).
     top_costs, top_iota = jax.lax.sort((eff_cost, s_iota), num_keys=1)
     top_costs, top_iota = top_costs[:k], top_iota[:k]
     valid = jnp.isfinite(top_costs)
@@ -355,10 +353,9 @@ def _expand_csr(cfg: BeamConfig, table: jnp.ndarray, g: int,
     payloads — the beam's tokens for the emitting/fallback passes, or a
     whole candidate array for the one-pass closure.
 
-    Tuned for the TPU gather cost model (per-ROW, width nearly free; small
-    tables much cheaper): arcs are stored g per row of `table`, so
-    ownership bookkeeping and both row gathers run over capacity/g
-    grouped slots:
+    Arcs are stored g per row of `table` (a layout fitted to a per-ROW
+    gather cost; ROADMAP S3 re-measures it), so ownership bookkeeping and
+    both row gathers run over capacity/g grouped slots:
       1. source row  [E/g, 8]  — per-source values packed per frame
       2. arc row     [E/g, g*5] — g arcs per fetched row
     Slot->source ownership is a scatter of span starts + cummax fill — no
@@ -384,9 +381,9 @@ def _expand_csr(cfg: BeamConfig, table: jnp.ndarray, g: int,
             jnp.where(span_rows > 0, slots, -1), mode="drop")
         tok = jax.lax.cummax(owner)
     else:
-        # Candidate-sized source sets (one-pass closure: k >> n_slots): a
-        # k-element scatter serializes on TPU, but ownership is just the
-        # CSR rank — n_slots binary searches over the cumsum instead.
+        # Candidate-sized source sets (one-pass closure: k >> n_slots):
+        # instead of a k-element scatter, ownership is the CSR rank —
+        # n_slots binary searches over the cumsum.
         s_ids = jnp.arange(n_slots, dtype=jnp.int32)
         tok = jnp.searchsorted(cum, s_ids, side="right").astype(jnp.int32)
         tok = jnp.where(s_ids < rows_needed, tok, -1)
@@ -487,10 +484,9 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
     cold_over = False
     cold_needed = 0
     if dfst.emit_compact:
-        # Compact 9-lane row (graph/device.py layout docstring): the
-        # gather's cost steps with TABLE size on chip, so halving the
-        # row bytes nearly halves the frame's largest gather; lane
-        # unpacking is a handful of VPU shifts/masks.
+        # Compact 9-lane row (graph/device.py layout docstring): half
+        # the row bytes of the frame's largest gather; lane unpacking is
+        # a handful of shifts/masks.
         eb = dfst.emit_block[state_c]  # [K, 9] row gather
         srl = jax.lax.shift_right_logical
         blk_next = jnp.stack([eb[:, 0] & 0xFFFFF, eb[:, 2] & 0xFFFFF], 1)
@@ -507,11 +503,11 @@ def _expand(cfg: BeamConfig, dfst: DeviceFst, beam: BeamState, capacity: int,
         eps_meta_self = jnp.zeros_like(state_c)  # compact => eps_removed
     else:
         if dfst.hot_rows and cfg.cold_expand_size > 0:
-            # Hot/cold split (EXPERIMENTAL, measured negative on the
-            # headline workload: peak-frame cold demand reached 70% of
-            # the beam, so the static cold capacity erases the small-
-            # table win — kept for graphs with genuinely skewed state
-            # visits).  Exact, loud truncation via hiwater slot 4.
+            # Hot/cold split (EXPERIMENTAL, off by default: peak-frame
+            # cold demand reached 70% of the beam on the headline
+            # workload, so the static cold capacity erases the small-
+            # table win; ROADMAP D2).  Exact, loud truncation via hiwater
+            # slot 4.
             cap = min(cfg.cold_expand_size, k)
             is_hot = state_c < dfst.hot_rows
             eb = dfst.emit_hot[jnp.where(is_hot, state_c, 0)]
@@ -615,18 +611,15 @@ def _lm(cfg: BeamConfig, dlm: DeviceLm, lm: jnp.ndarray,
 
 
 def _acoustic_lookup(logp: jnp.ndarray, pdf: jnp.ndarray) -> jnp.ndarray:
-    """Exact logp[pdf] without a scalar gather: two-level one-hot select.
+    """Exact logp[pdf] without an element gather: two-level one-hot select.
 
-    TPU element gathers run one row at a time on the scalar unit (~the
-    decoder's single largest cost).  Instead, select the 128-wide block
-    containing each pdf with a one-hot matmul on the MXU, then pick the
-    lane with a VPU mask+reduce.  With HIGHEST precision the one-hot
-    matmul is BIT-EXACT (1.0 x value + exact zeros), measured ~2.4x faster
-    than the gather at decoder shapes.  Keep this in XLA, NOT Pallas: in
-    isolation it measures 0.035 ms/frame at bench shapes (XLA fuses the
-    one-hot construction and the mask+reduce around the dot), and a fused
-    Pallas kernel attempt measured 30% SLOWER end-to-end because it broke
-    that surrounding fusion (round-3 negative result).
+    Select the 128-wide block containing each pdf with a one-hot matmul,
+    then pick the lane with a mask+reduce.  With HIGHEST precision (true
+    f32, no TF32 rounding) the one-hot matmul is BIT-EXACT (1.0 x value +
+    exact zeros), which chip_smoke.py checks on the card against a plain
+    gather.  The form was chosen because the previous accelerator's
+    element gathers were slow; ROADMAP S4 times the plain `logp[pdf]`
+    gather against it on the GPU.
     """
     p = logp.shape[0]
     blocks = -(-p // 128)
@@ -698,10 +691,8 @@ def _eps_free_step(cfg: BeamConfig, dfst: DeviceFst,
     emitting arcs (each carrying up to TWO output labels), add acoustic
     (+ two delta-LM transitions), then ONE exact dedup + top-K + beam
     threshold.  No closure rounds, no merge selection, no trace
-    composition — on TPU the selection sorts cost per bitonic STAGE
-    (~log^2 N, nearly independent of N at beam shapes), so removing a
-    whole selection pass is worth more than any candidate-count tuning
-    (scripts/frameprof.py round-3 measurements).
+    composition: a whole selection pass (two multi-operand sorts) per
+    frame is gone.
 
     Pruning semantics == OracleDecoder(one_pass_eps=True): relax the
     full closure, prune once — one step closer to the reference, whose

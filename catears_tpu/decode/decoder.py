@@ -342,6 +342,9 @@ class BatchDecoder:
             dec_fst, tid2pdf, group=arc_group, eps_depth_cap=cap,
             csr_group=csr_group, olabel2=olab2)
         self.dlm = DeviceLm.build(delta_lm) if delta_lm is not None else None
+        # (emit_overflow, eps, lm_walk, select_compact, cold_emit) slots the
+        # last decode needed, max over its batch (see Decoder).
+        self.capacity_high_water: Optional[tuple] = None
 
     def decode(self, logp, lengths: Optional[Sequence[int]] = None,
                device_backtrace: bool = True,
@@ -367,10 +370,11 @@ class BatchDecoder:
         if self.auto_capacity:
             retry_on_overflow = False  # safe_config bounds cannot truncate
         try:
-            return _decode_batch_once(self.fst, self.dfst, self.dlm, logp,
-                                      lengths, self.delta_lm, self.cfg,
-                                      self.chunk_frames, device_backtrace,
-                                      final_fallback)
+            hyps, self.capacity_high_water = _decode_batch_once(
+                self.fst, self.dfst, self.dlm, logp, lengths, self.delta_lm,
+                self.cfg, self.chunk_frames, device_backtrace,
+                final_fallback)
+            return hyps
         except BeamCapacityError as err:
             if not retry_on_overflow or err.hiwater is None:
                 raise
@@ -382,10 +386,10 @@ class BatchDecoder:
                   f"eps={regrown.eps_expand_size} "
                   f"lm={regrown.lm_expand_size} and retrying once",
                   file=sys.stderr)
-            return _decode_batch_once(self.fst, self.dfst, self.dlm, logp,
-                                      lengths, self.delta_lm, regrown,
-                                      self.chunk_frames, device_backtrace,
-                                      final_fallback)
+            hyps, self.capacity_high_water = _decode_batch_once(
+                self.fst, self.dfst, self.dlm, logp, lengths, self.delta_lm,
+                regrown, self.chunk_frames, device_backtrace, final_fallback)
+            return hyps
 
 
 def decode_batch(fst: FlatFst, tid2pdf: np.ndarray, logp: np.ndarray,
@@ -435,7 +439,8 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                        delta_lm: Optional[DeltaLmFst],
                        config: BeamConfig, chunk_frames: int,
                        device_backtrace: bool,
-                       final_fallback: bool = False) -> List[Hypothesis]:
+                       final_fallback: bool = False):
+    """Returns (hypotheses, capacity high-water tuple)."""
     has_lm = dlm is not None
     on_device = isinstance(logp, jnp.ndarray)
     b, t, p = logp.shape
@@ -476,14 +481,14 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
                     all_traces[u].append(HostTrace(prev[f, u], words[f, u]))
 
     overflow = np.asarray(beam.overflow)
+    hiwater = tuple(int(x) for x in np.asarray(beam.hiwater).max(axis=0))
     if overflow.any():
         bad = np.flatnonzero(overflow).tolist()
         raise BeamCapacityError(
             f"arc expansion overflowed capacity (expand_size="
             f"{config.expand_size}, eps_expand_size="
             f"{config.eps_expand_size}) for utterances {bad}",
-            hiwater=tuple(int(x)
-                          for x in np.asarray(beam.hiwater).max(axis=0)))
+            hiwater=hiwater)
     states = np.asarray(beam.states)
     lms = np.asarray(beam.lm)
     costs = np.asarray(beam.costs)
@@ -492,7 +497,7 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
             best_path(all_traces[u], states[u], lms[u], costs[u], fst,
                       delta_lm, end_of_stream=True)
             for u in range(b)
-        ]
+        ], hiwater
     # Exact final-weight selection on host (delta-LM finals need the
     # backoff walk, reference src/fst.cc:235-251), then ONE device
     # backtrace for the whole batch.  Identity trace rows past each
@@ -527,4 +532,4 @@ def _decode_batch_once(fst: FlatFst, dfst: DeviceFst,
         Hypothesis([], 0.0) if empty[u]
         else Hypothesis(assemble_words(words[u]), float(totals[u]))
         for u in range(b)
-    ]
+    ], hiwater

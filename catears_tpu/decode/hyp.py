@@ -70,8 +70,8 @@ class IncrementalBacktracker:
     walking the best token's olabel chain — O(words) because its chains
     ARE the word sequence (src/ce_stt.cc:326-328).  Our per-frame traces
     make a naive refresh O(frames), which turns a long stream into
-    O(T^2) host work (measured: ~180 ms of a 228 ms chunk latency at
-    1000 frames).  This tracker exploits that backpointer chains are
+    O(T^2) host work (ROADMAP S8 measures the host side of streaming).
+    This tracker exploits that backpointer chains are
     FUNCTIONAL — a given (frame, slot) pair always denotes the same
     history — so each refresh walks backwards only until it reaches a
     (frame, slot) visited by the previous refresh's path, then splices

@@ -3,8 +3,8 @@
 The reference decoder chases pointers through OpenFST arc iterators and
 resolves big-LM backoff chains one query at a time with binary searches
 (reference src/fst.cc:131-154,210-233) behind a 1M-entry direct-mapped cache
-(src/fst.cc:292-327).  On TPU both become dense vector ops: arcs live in CSR
-arrays in HBM, expansion is a batched gather, and backoff walks run as a
+(src/fst.cc:292-327).  On the device both become dense vector ops: arcs
+live in CSR arrays in device memory, expansion is a batched gather, and backoff walks run as a
 bounded while_loop over whole candidate vectors, making the scalar cache
 unnecessary.
 """
@@ -30,7 +30,7 @@ def compact_mask(keep: jnp.ndarray, cols, c2: int):
 
     Compaction without scatters or per-row gathers for the bookkeeping:
     segment the array 512 wide, sort each segment's kept-iota keys (a
-    single-operand VPU sort over rows — log^2(512) stages instead of the
+    single-operand sort over rows — log^2(512) stages instead of the
     full array's log^2(N)), then place survivors by rank with vectorized
     segment arithmetic + one packed row gather of C2 rows.  Survivor
     order == input order.  Returns (compacted i32 columns, valid mask
@@ -51,7 +51,7 @@ def compact_mask(keep: jnp.ndarray, cols, c2: int):
     j = jnp.arange(c2, dtype=jnp.int32)
     # Segment of output slot j = number of segments fully used before it;
     # its start offset recovered with a one-hot select (no row gathers on
-    # the tiny [nseg] tables — compare+reduce stays on the VPU).
+    # the tiny [nseg] tables — a compare+reduce instead).
     segj = jnp.sum((ends[None, :] <= j[:, None]).astype(jnp.int32), axis=1)
     segc = jnp.minimum(segj, nseg - 1)
     onehot = segc[:, None] == jnp.arange(nseg, dtype=jnp.int32)
@@ -169,10 +169,10 @@ def _eps_depth(fst: FlatFst, bound: int = 16) -> Optional[int]:
 class DeviceFst:
     """HCLG graph as device arrays (arcs (state, ilabel)-sorted).
 
-    The TPU gather cost model measured on chip (scripts/gatherprof.py and
-    the round-3 microbenches): a row gather's cost is per ROW with width
-    nearly free, AND gathers from tables beyond ~8 MB cost ~2x per row
-    plus a large fixed term.  The layout therefore (a) fetches arcs
+    The layout was fitted to the previous accelerator's gather cost model
+    (cost per ROW with width nearly free, and higher per row from large
+    tables); ROADMAP S3 measures it again on the GPU.  The layout (a)
+    fetches arcs
     `group` (G) at a time, (b) keeps the random-access side tables SMALL
     by splitting epsilon and overflow arcs into separate sub-tables (for
     real HCLGs both are a few MB even at 50k words — only high-fanout
@@ -238,22 +238,20 @@ class DeviceFst:
     # nonzero — the delta-LM's first-walk pass is statically skippable.
     has_emit_olabel: bool = True
     # Hot/cold emit split: rows [0, hot_rows) of emit_block are COPIED
-    # into the separate emit_hot table.  On-chip gathers cost per row by
-    # TABLE size in a step function (~9 ns/row <= ~12 MB, ~16 to ~22 MB,
-    # ~36 beyond — scripts/hotcoldprof.py measurements), so serving the
-    # frequency-renumbered hot states (graph.transform.hot_order) from a
-    # small table and only the compacted cold lanes from the big one
-    # turns the frame's largest gather from K x 36 ns into
-    # K x 9 + cold x 36.  0 = single-table layout.  Requires
-    # BeamConfig.cold_expand_size > 0 to take effect in the decoder.
+    # into the separate emit_hot table, so the frequency-renumbered hot
+    # states (graph.transform.hot_order) gather from a small table and
+    # only the compacted cold lanes from the big one.  It assumed gathers
+    # cost more per row from larger tables; off by default, measured
+    # again on the GPU by ROADMAP S3 and then kept or deleted (D2).
+    # 0 = single-table layout.  Requires BeamConfig.cold_expand_size > 0
+    # to take effect in the decoder.
     emit_hot: Optional[jnp.ndarray] = None
     hot_rows: int = 0
     # Static: emit_block uses the COMPACT 9-lane row (eps-removed, G=2
-    # graphs whose fields fit the packed widths — see build()).  Gather
-    # cost is per row AND stepped by table size (scripts measurements:
-    # ~36 ns/row at 44 MB vs ~21 at 22 MB for the 618k-state trie), so
-    # packing the 18-lane row into 9 lanes cuts the frame's largest
-    # gather nearly in half with no bookkeeping.  Layout:
+    # graphs whose fields fit the packed widths — see build()).  Packing
+    # the 18-lane row into 9 lanes halves the emit table (44.5 -> 22.2 MB
+    # for the 618k-state trie) and the bytes of the frame's largest
+    # gather; ROADMAP S3 measures the gain on the GPU.  Layout:
     #   0: next0 | pdf0 << 20        1: w0 bits (f32)
     #   2: next1 | pdf1 << 20        3: w1 bits
     #   4: olabel0 | olabel1 << 16   5: olabel2_0 | olabel2_1 << 16
@@ -320,7 +318,7 @@ class DeviceFst:
         # beyond the first-G block) each get their OWN flat table, spans
         # padded to row boundaries.  Keeping these tables small (only
         # word-end states have epsilons, only high-fanout states overflow)
-        # keeps their gathers in the measured fast regime.
+        # keeps their gathers cheap.
         n_over = np.maximum(n_emit - group, 0)
         eps_rows = -(-n_eps // ge)
         over_rows = -(-n_over // gc)
@@ -466,10 +464,9 @@ class DeviceLm:
         4-way-bucketized hash table: one 64-byte row gather resolves a
         lookup (a second row only when the bucket's overflow bit — the
         sign of the l0 lane — says a colliding key was displaced to its
-        alternate bucket).  On chip, row gathers cost ~0.3 us/row
-        (scripts/lmprof.py), so replacing the span_bits(~11)-round
-        binary search with ~1 probe round is the difference between the
-        walk costing milliseconds and costing microseconds per frame.
+        alternate bucket).  Replacing the span_bits(~11)-round binary
+        search with ~1 probe round cuts the walk's dependent row gathers
+        about tenfold (ROADMAP S5 measures the walk on the GPU).
       state_tab — per-state (backoff_next, backoff_weight): the epsilon
         first-arc convention resolved offline, one row gather per miss.
 
@@ -618,7 +615,7 @@ def lm_propagate_capped(dlm: DeviceLm, states: jnp.ndarray,
     the number of WORDS in flight, not to the expansion capacity:
 
       1. segment-sort compaction (compact_mask) books the active lanes
-         with VPU sorts + ONE cap-row gather
+         with segment sorts + ONE cap-row gather
       2. bounded backoff walk over the cap compacted lanes
       3. a cap-row scatter maps (state', weight) back to their lanes
 
@@ -635,11 +632,10 @@ def lm_propagate_capped(dlm: DeviceLm, states: jnp.ndarray,
     if cap <= 0 or cap >= e:
         ns, w = lm_propagate(dlm, states, labels)
         return ns, w, needed
-    # Segment-sort compaction (compact_mask): the previous
-    # cumsum+searchsorted compaction cost log2(E) rounds of cap-wide row
-    # gathers (~2.4 ms/frame at bench shapes, scripts/lmprof.py); the
-    # segment machinery books survivors with VPU sorts and pays ONE
-    # cap-row gather.
+    # Segment-sort compaction (compact_mask): a cumsum+searchsorted
+    # compaction would cost log2(E) rounds of cap-wide row gathers; the
+    # segment machinery books survivors with sorts and pays ONE cap-row
+    # gather.
     (sub_states, sub_labels), sub_ok, _total, lane = compact_mask(
         active, [states, labels], cap)
     sub_states = jnp.where(sub_ok, sub_states, 0)
@@ -667,10 +663,9 @@ def lm_propagate(dlm: Optional[DeviceLm], states: jnp.ndarray,
     Per while_loop iteration the walk pays TWO cap-wide row gathers (one
     hash bucket, one state_tab backoff row) plus a rare second-choice
     probe iteration — against the old design's span_bits(~11)
-    binary-search rounds + 2 span-bound rounds.  Row gathers dominate the
-    walk's on-chip cost (~0.3 us/row, scripts/lmprof.py), so iterations
-    are the budget: a found word costs 1, each backoff hop 1, a displaced
-    hash key 1 extra.
+    binary-search rounds + 2 span-bound rounds.  Dependent row gathers
+    set the walk's cost, so iterations are the budget: a found word
+    costs 1, each backoff hop 1, a displaced hash key 1 extra.
     """
     if dlm is None:
         return states, jnp.zeros_like(states, jnp.float32)

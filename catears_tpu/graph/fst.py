@@ -1,7 +1,7 @@
 """WFST graph layer: flat CSR arc tables.
 
 Host-side (numpy) FSTs used for loading, the oracle decoder and tests, plus
-conversion into device-resident arrays for the TPU beam search.
+conversion into device-resident arrays for the device beam search.
 
 Behavioral parity targets:
   - `FlatFst` ~ reference `Fst` (pk::fst_0; src/fst.cc:51-173)

@@ -8,17 +8,15 @@ epsilons word-end -> LM-history -> backoff-root (depth 2-3 per LM order).
 `remove_epsilons` goes one step further: it composes every EMITTING arc
 with its destination's (closed) epsilon span, producing an eps-FREE frame
 loop — the per-frame epsilon closure disappears entirely, and with it a
-full dedup+top-K selection pass.  On TPU the selection sorts cost per
-bitonic STAGE (~log^2 N), nearly independent of N at beam shapes
-(scripts/frameprof.py round-3 measurements), so eliminating a whole
-selection beats any candidate-count tuning.  Composed arcs carry up to
+full dedup+top-K selection pass (two sorts per frame).  Composed arcs carry
+up to
 TWO output labels (emit olabel then eps-path olabel) — exactly the two
 word lanes the frame trace already has.  The epsilon arcs stay in the
 graph for the INIT closure (root state) only.
 
 The reference resolves the same chains dynamically with a worklist
-(reference src/decoder.cc:240-292); a TPU decoder pays per ROUND, not per
-arc, which makes the offline trades profitable.
+(reference src/decoder.cc:240-292); a batched device decoder pays per
+ROUND, not per arc, which makes the offline trades profitable.
 
 Exactness: every epsilon path u => x with total weight w and at most one
 non-epsilon output label o becomes a direct arc (u, x, eps, o, w), deduped
@@ -212,8 +210,8 @@ def bfs_order(fst: FlatFst) -> np.ndarray:
     keep their relative order after the reachable ones.  BFS puts states
     that co-occur in a decode frontier (shared trie prefixes, HMM chains
     near the same depth) at nearby row ids — a decode-locality layout for
-    the emit_block gathers (the >8 MB gather penalty is the repo's own
-    measured cost model, graph/device.py cost notes).
+    the emit_block gathers (off by default; ROADMAP S3 measures it on the
+    GPU, where L2 locality may pay).
     """
     n = fst.num_states
     state_of_arc = np.repeat(np.arange(n, dtype=np.int64),
@@ -259,15 +257,11 @@ def frequency_order(counts: np.ndarray, tie_break: np.ndarray = None
 def hot_order(counts: np.ndarray, hot_rows: int, seed: int = 0
               ) -> np.ndarray:
     """Hot/cold layout permutation: the `hot_rows` most-visited states get
-    ids [0, hot_rows) — SHUFFLED within the hot region (adjacent-row
-    gathers measure ~1.5x slower than spread ones on chip, so
-    concentrating hot chains at adjacent ids would forfeit part of the
-    small-table win) — and the rest keep their relative natural order
-    (preserving the trie's chain adjacency, which the cold path rarely
-    touches).  Pair with DeviceFst.build(hot_rows=...) so the decoder
-    serves ids < hot_rows from a separate small emit table in the
-    measured 9 ns/row gather regime (<= ~12 MB) instead of the full
-    table's 36 ns/row.
+    ids [0, hot_rows) — SHUFFLED within the hot region — and the rest keep
+    their relative natural order (preserving the trie's chain adjacency,
+    which the cold path rarely touches).  Pair with
+    DeviceFst.build(hot_rows=...) so the decoder serves ids < hot_rows
+    from a separate small emit table (off by default; ROADMAP D2).
     """
     n = counts.shape[0]
     h = min(hot_rows, n)

@@ -1,13 +1,14 @@
 """Multi-host runtime initialization and cross-host utilities.
 
 The reference is single-process (SURVEY.md §2: no distribution of any
-kind); multi-host scale-out is new TPU-native design.  A pod-slice
-deployment calls `initialize()` once per host before building a mesh with
+kind); multi-host scale-out is new design.  A multi-host deployment calls
+`initialize()` once per host before building a mesh with
 `parallel.mesh.make_mesh()`; utterance batches shard over the global 'data'
 axis so each host feeds its local shard (`local_batch_slice`), and the only
 cross-host traffic is the psum in `global_audio_seconds` style metric
 reductions — the beam search itself is embarrassingly parallel per
-utterance and rides ICI only for tensor-parallel AM collectives.
+utterance and needs the interconnect only for tensor-parallel AM
+collectives.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize wrapper; no-op when single-process.
 
-    With no arguments, relies on the TPU pod environment's automatic
-    configuration (as `jax.distributed.initialize()` does on Cloud TPU).
+    Pass the coordinator address (`host:port`), the number of processes
+    and this process's id: a GPU cluster without a scheduler that JAX
+    recognizes is not configured automatically.
     """
     if num_processes is not None and num_processes <= 1:
         return

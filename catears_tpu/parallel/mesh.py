@@ -7,7 +7,7 @@ scale-out here is new, idiomatic design: a `jax.sharding.Mesh` with axes
   model  — acoustic-model weight sharding (column-parallel linears)
 
 Shardings are annotated with NamedSharding / with_sharding_constraint and
-XLA GSPMD inserts the collectives (all-gather/psum over ICI), following the
+XLA GSPMD inserts the collectives (all-gather/psum over NVLink), following the
 scaling-book recipe: pick a mesh, annotate, let the compiler partition.
 
 Pipeline/sequence/expert parallelism do not apply to this architecture: the

@@ -6,7 +6,7 @@ fbank + AM forward as ONE vmapped device program and the beam search
 consumes the [B, T, P] log-probs WITHOUT them ever visiting the host
 (decode.decoder.BatchDecoder with a device array).  The reference CLI
 decodes scp entries strictly one at a time (src/main.cc:55-77); batching
-across utterances is the TPU-native win.
+across utterances is what fills the device.
 
 Ragged batches stay EXACT: features are context-padded per utterance with
 a clipped index gather (replicating edge frames, the reference's

@@ -92,7 +92,7 @@ class Recognizer:
     def create_stream_batch(self, n_streams: int):
         """N concurrent live streams in one fused device program per
         chunk step (runtime.streaming.BatchStreamingSession) — the
-        TPU-native production shape of the reference's streaming design
+        batched production shape of the reference's streaming design
         center (src/ce_stt.cc:295-340)."""
         from catears_tpu.runtime.streaming import BatchStreamingSession
 

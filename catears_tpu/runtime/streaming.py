@@ -1,10 +1,9 @@
 """Fused low-latency streaming session: one device dispatch per frame chunk.
 
 The componentized streaming path (FbankStream -> AMStream -> Decoder) is
-semantically exact but pays a host<->device round trip per stage per call —
-fatal for real-time use through a remote device.  This session fuses
-fbank + TDNN forward + beam search for a fixed F-frame chunk into ONE jit
-program, carrying the AM context window and the beam entirely on device:
+semantically exact but pays a host<->device round trip per stage per call.
+This session fuses fbank + TDNN forward + beam search for a fixed F-frame
+chunk into ONE jit program, carrying the AM context window and the beam entirely on device:
 
   step(samples_window, ctx, beam) -> (ctx', beam', trace)
 
@@ -373,7 +372,7 @@ class StreamingSession:
 class BatchStreamingSession:
     """N concurrent live streams decoded by ONE fused program per step.
 
-    The TPU-native production shape of the reference's streaming design
+    The batched production shape of the reference's streaming design
     center (src/ce_stt.cc:295-340): per-stream sample buffers on the
     host, a shared [B]-batched fbank+AM+decode chunk step on device, and
     per-stream partial hypotheses via per-stream incremental trackers.
@@ -632,8 +631,8 @@ class BatchStreamingSession:
         trip: one trace materialization plus one whole-[B] beam pull,
         then per-stream incremental host walks.  B ``best_path()`` calls
         return the same hypotheses but pay B separate device syncs for
-        slices of the same arrays — through a remote-attached device
-        that is B round-trip latencies per tick, not one."""
+        slices of the same arrays: B round-trip latencies per tick, not
+        one."""
         ovf, states, lms, costs = jax.device_get(
             (self.beam.overflow, self.beam.states, self.beam.lm,
              self.beam.costs))

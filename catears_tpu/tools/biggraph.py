@@ -372,7 +372,8 @@ def plant_logp(rng: np.random.RandomState, graph: TrieGraph, batch: int,
 
 def write_trie_model(out_dir: str, rng: np.random.RandomState,
                      num_words: int = 50_000, hidden: int = 1024,
-                     with_lm: bool = False, **trie_kwargs) -> str:
+                     with_lm: bool = False, num_tdnn_layers: int = 2,
+                     **trie_kwargs) -> str:
     """Write a decodable model directory around a trie HCLG.
 
     Same artifact set as tools.toy.write_toy_model (pk::fst_0 graph, NN02
@@ -391,7 +392,8 @@ def write_trie_model(out_dir: str, rng: np.random.RandomState,
 
     os.makedirs(out_dir, exist_ok=True)
     g = make_trie_graph(rng, num_words=num_words, **trie_kwargs)
-    nnet = make_toy_nnet(rng, hidden=hidden, num_pdfs=g.num_pdfs)
+    nnet = make_toy_nnet(rng, hidden=hidden, num_pdfs=g.num_pdfs,
+                         num_tdnn_layers=num_tdnn_layers)
     with open(os.path.join(out_dir, "trie.nnet"), "wb") as fd:
         binfmt.write_nnet(fd, nnet)
     prior = (np.ones(g.num_pdfs) / g.num_pdfs).astype(np.float32)
@@ -414,7 +416,7 @@ def write_trie_model(out_dir: str, rng: np.random.RandomState,
         fd.write(f"right_context = {nnet.right_context}\n")
         fd.write(f"chunk_size = 20\nnum_pdfs = {g.num_pdfs}\n")
         fd.write("tid2pdf = trie.tid2pdf\nsymbol_table = words.txt\n")
-        # Device layout tuned for trie fanout (bench.py / frameprof sweep)
+        # Device layout tuned for trie fanout (see bench.py)
         fd.write("arc_group = 2\ncsr_group = 16\n")
         if with_lm:
             fd.write("large_lm = trie_g.fst\noriginal_lm = trie.unigram\n")

@@ -1,6 +1,6 @@
 // Native runtime components for catears_tpu.
 //
-// The reference implements its entire runtime in C++; here the TPU compute
+// The reference implements its entire runtime in C++; here the device compute
 // path is JAX/XLA, and the host-side runtime pieces that benefit from native
 // code live in this library, called via ctypes:
 //

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Build the reference binary with a ONE-LINE fix for the OLabel GC bug its
 # stock build hits at large-vocab scale (discovered round 4, see
-# BASELINE.md "Reference GC bug"):
+# docs/DEBUG.md, the reference GC bug):
 #
 #   /root/reference/src/pool.h GCPool::GC bounds both the unmark and the
 #   sweep loop with `current_pos_ - 1`, skipping the LAST bump-allocated

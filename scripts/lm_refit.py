@@ -21,8 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/catears_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from catears_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 OUT = os.environ.get("OUT_DIR", "/tmp/realism")
 WORDS = int(os.environ.get("WORDS", 50000))

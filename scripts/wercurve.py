@@ -23,8 +23,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/catears_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from catears_tpu.utils.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from catears_tpu.decode.beam import (
     BeamConfig,

@@ -1,8 +1,8 @@
 """Multi-process tests for catears_tpu.parallel.distributed.
 
 Spawns real OS processes (CPU backend, Gloo collectives through the JAX
-coordination service) — the same jax.distributed path a TPU pod slice
-uses, minus the ICI.  Covers initialize(), local_batch_slice() and
+coordination service) — the same jax.distributed path a multi-host GPU
+deployment uses, minus NVLink/NCCL.  Covers initialize(), local_batch_slice() and
 global_sum() across 2 processes x 2 virtual devices each.
 """
 
@@ -180,7 +180,7 @@ def test_two_process_sharded_decode(tmp_path):
     """ShardedPipeline.full_step across 2 REAL processes x 2 local devices
     on a globally sharded ragged batch must equal the single-process
     decode shard by shard — the multi-host decode path docs/SCALING.md
-    describes, executed by CI (VERDICT r4 #5)."""
+    describes, executed by CI."""
     script = tmp_path / "decode_worker.py"
     script.write_text(DECODE_WORKER)
     port = _free_port()

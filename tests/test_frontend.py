@@ -90,7 +90,7 @@ class TestCMVN:
 
 class TestDftBasis:
     def test_dft_matrix_matches_rfft(self):
-        """The MXU DFT basis == numpy rfft on zero-padded frames.
+        """The matmul DFT basis == numpy rfft on zero-padded frames.
 
         This is the srfft_test analogue: the reference validates its
         split-radix FFT against golden outputs; here the DFT-as-matmul

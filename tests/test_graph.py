@@ -231,7 +231,7 @@ class TestRenumber:
 class TestBigLmDevice:
     """ARPA-scale G' stress: device lm_propagate vs the host backoff walk.
 
-    VERDICT #6: the toy G.pfst has hundreds of states; this exercises the
+    The toy G.pfst has hundreds of states; this exercises the
     dense state-0 fast path and 2-hop trigram backoff chains at a ~100k
     state / 2k vocab shape (scaled down from the 50k-vocab bench geometry,
     same structure).

@@ -91,7 +91,7 @@ class TestFusedStreaming:
 
 
 class TestFusedCMVN:
-    """Online CMVN inside the fused device program (VERDICT r2 item 7).
+    """Online CMVN inside the fused device program.
 
     The fused session carries the 600-frame CMVN ring on device in f32;
     the componentized path accumulates in f64 — transcripts must agree
@@ -152,7 +152,7 @@ class TestFusedCMVN:
 
 
 class TestBatchStreaming:
-    """N concurrent streams in ONE fused program (VERDICT r4 #6) must
+    """N concurrent streams in ONE fused program must
     equal N independent fused sessions — including ragged pacing where
     streams receive audio at different rates and finish at different
     times."""
